@@ -1,6 +1,6 @@
 # fastlanes-tpu developer workflow (the reference's CI surface, ci.yml:49-56)
 
-.PHONY: test test-fast lint native bench validate-tpu clean
+.PHONY: test test-fast lint native bench smoke clean
 
 test:
 	python -m pytest tests/ -q
@@ -17,8 +17,8 @@ native:
 bench:
 	python bench.py
 
-validate-tpu:
-	python tools/validate_tpu.py
+smoke:
+	python chip_smoke.py
 
 clean:
 	rm -f fastlanes_tpu/native/libfastlanes_native.so

@@ -7,9 +7,11 @@ each, one global 8-device mesh over the block axis, chained sharded decode
 (the scaling.py harness) with the width-agreement pmax and a psum'd probe
 riding real cross-process collectives.
 
-On this 1-vCPU host the two processes share one core, so the aggregate
-number is a METHODOLOGY record (the distributed path runs end-to-end at
-benchable scale), not a hardware claim — the jsonl row says platform=cpu.
+Both workers are pinned to the CPU (JAX_PLATFORMS=cpu before jax is
+imported), so the script never opens a GPU: two JAX processes on one card
+would each reserve most of its memory. The aggregate number is a
+METHODOLOGY record (the distributed path runs end-to-end at benchable
+scale), not a hardware claim — the jsonl row says platform=cpu.
 
 Usage: python benchmarks/scaling_multiproc.py [--blocks PER_DEV] [--out PATH]
 """
@@ -17,7 +19,6 @@ Usage: python benchmarks/scaling_multiproc.py [--blocks PER_DEV] [--out PATH]
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import socket
 import subprocess

@@ -1,19 +1,20 @@
-"""fastlanes_tpu — a TPU-native FastLanes lightweight-compression framework.
+"""fastlanes_tpu — a JAX FastLanes lightweight-compression framework.
 
-A from-scratch JAX/XLA/Pallas implementation of the FastLanes compression
+A from-scratch JAX/XLA implementation of the FastLanes compression
 layout (Afroozeh & Boncz, VLDB 2023) with the full capability surface of the
 Rust reference crate (spiraldb/fastlanes v0.1.8): fixed-width bit-packing,
 Delta, frame-of-reference (FFoR) and the 04261537 interleaved transpose over
 1024-value blocks of u8/u16/u32/u64 — bit-compatible with the Rust crate's
-(transposed-order) wire format — plus new TPU-native surface: batched jit
-ops, Pallas VPU kernels, runtime-width dispatch, sharded multi-chip/multi-host
-execution over a jax.sharding.Mesh, and a C++ host-side codec.
+(transposed-order) wire format — plus new surface: batched jit ops,
+runtime-width dispatch, sharded multi-device / multi-host execution over a
+jax.sharding.Mesh, compressed files and queries over them, and a C++
+host-side codec.
 
 Layer map (mirrors SURVEY.md §1/§7):
   core/      layout spec: FL_ORDER, index maps, inverse tables   (L0)
   ref/       NumPy oracle, slow-but-exact                        (conformance)
   ops/       pure-jnp XLA ops, batched + jittable                (L1-L2)
-  kernels/   Pallas TPU kernels for the hot paths                (L2 fast path)
+  kernels/   public codec entries, routed per device kind        (L2 API)
   models/    composed codecs (BitPacked/Delta/FFoR/auto)         (L3 API)
   parallel/  mesh + shard_map distribution, multi-host           (new surface)
   native/    C++ host codec (ctypes), independent oracle + IO    (host runtime)

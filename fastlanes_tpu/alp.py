@@ -34,15 +34,13 @@ check makes correctness independent of that anyway: any value the spec
 cannot reproduce is an exception by construction.
 
 float32 columns: |i * 10^f| bounded below 2^24 (exact in int32 AND f32),
-payload u32. On TPU the hardware f32 divide is NOT correctly rounded
-(measured 1-ulp-off on ~20% of decimal quotients), so the device decode
-computes the IEEE quotient in the INTEGER domain — see
-_div_pow10_f32_device — bit-exact with the host spec (validated on the
-real chip over millions of values, every d in 0..10).
+payload u32. The device decode computes the IEEE quotient in the INTEGER
+domain — see _div_pow10_f32_device — so it is bit-exact with the host spec
+whatever a backend's float divide rounds to.
 float64 columns: ints bounded to +-2^52, payload u64 (limb pairs); the
 device decode emulates the spec's single correctly-rounded f64 division in
-the integer limb domain (_div_pow10_f64_limbs) — x64-FREE, runs on TPU;
-without x64 the result is the (..., 2) uint32 f64 bit image.
+the integer limb domain (_div_pow10_f64_limbs) — x64-FREE; without x64
+the result is the (..., 2) uint32 f64 bit image.
 """
 
 from __future__ import annotations
@@ -81,7 +79,7 @@ def _decode_np(ints: np.ndarray, e: int, f: int, np_float) -> np.ndarray:
     bit-identical (all intermediates exact, single rounding either way);
     for f64 the single-division form avoids a second rounding when
     i * 10^f exceeds 2^53, and — decisively — it is emulable bit-exactly
-    on TPU in the integer limb domain (_div_pow10_f64_limbs): the device
+    in the integer limb domain (_div_pow10_f64_limbs): the device
     needs only ONE rounding to reproduce, with exact operands
     (|i| <= 2^52, 10^d = 2^d * 5^d exact in f64 for d <= 18)."""
     return (ints.astype(np_float) / _pow10(e - f, np_float)).astype(np_float)
@@ -176,10 +174,9 @@ def decode_np(shifted: np.ndarray, e: int, f: int, reference: int,
 
 def _div_pow10_f32_device(x_int, d: int):
     """Correctly-rounded f32 quotient x / 10^d for exact int32 x
-    (|x| < 2^24), WITHOUT floating-point division — TPU's f32 divide is
-    not correctly rounded (measured 1-ulp-off on ~20% of decimal values),
-    so the IEEE division the wire spec demands is computed exactly in the
-    integer domain:
+    (|x| < 2^24), WITHOUT floating-point division — the IEEE division the
+    wire spec demands is computed exactly in the integer domain, so no
+    backend's divide rounding can change the decoded bits:
 
       x/10^d = (x/5^d) * 2^-d   (power-of-2 scaling commutes with RN)
 
@@ -258,7 +255,7 @@ def _div_pow10_f64_limbs(lo, hi, d: int):
     the quotient uniformly 54 bits; round-to-nearest-even with the sticky
     remainder gives the 53-bit mantissa, and the exponent/sign/mantissa
     pack into f64 bits directly. All ops are uint32 vector ops — identical
-    results on TPU and CPU jax."""
+    results on every jax backend."""
     import jax
     import jax.numpy as jnp
 
@@ -441,12 +438,12 @@ def decode_device(shifted, e: int, f: int, reference: int, np_float,
     scatter-patch, bit-exact with the host spec.
 
     f32 payloads: the multiply by 10^f stays in the exact-int domain and
-    the divide by 10^e runs through _div_pow10_f32_device (TPU's hardware
-    divide is not IEEE-correctly-rounded; the encoder's in-range bound
-    keeps |i * 10^f| < 2^24 so both steps are exact/NR-exact).
+    the divide by 10^e runs through _div_pow10_f32_device (exact integer
+    division; the encoder's in-range bound keeps |i * 10^f| < 2^24 so both
+    steps are exact).
 
     f64 payloads: x64-FREE — `shifted` may be the (..., 2) uint32 limb
-    image (the TPU form); the single correctly-rounded division of the
+    image (the x64-free form); the single correctly-rounded division of the
     wire spec runs in the integer limb domain (_div_pow10_f64_limbs) and
     the result comes back as float64 when jax x64 is enabled, else as the
     (..., 2) uint32 limb image of the f64 bits (bitcastable by any x64

@@ -1,7 +1,7 @@
 """FastLanes layout core: the 04261537 interleaved order, index maps, inverse tables.
 
 This is the pure-Python/NumPy *specification* of the FastLanes transposed layout
-(Afroozeh & Boncz, VLDB 2023). Every other module (NumPy oracle, jnp ops, Pallas
+(Afroozeh & Boncz, VLDB 2023). Every other module (NumPy oracle, jnp ops,
 kernels, C++ host codec) is tested against the functions here.
 
 Reference parity (spiraldb/fastlanes, Rust crate v0.1.8):
@@ -13,13 +13,13 @@ Reference parity (spiraldb/fastlanes, Rust crate v0.1.8):
                               <- reference src/bitpacking.rs:207-232
   - packed length 1024*W/T    <- reference src/bitpacking.rs:19, 77
 
-TPU-first structural facts derived from the layout (and verified by tests):
+Structural facts derived from the layout (and verified by tests):
 
-  * A 1024-value block reshaped to (8, 128) is exactly one 32-bit vreg tile.
+  * A 1024-value block reshaped to (8, 128):
     ``index(row, lane) = (row % 8) * 128 + (FL_ORDER[row // 8] * 16 + lane)``,
     so the transposed-order row (row, 0..LANES) is a *contiguous* slice
     ``flat[(row % 8) * 128 + off : ... + LANES]`` with
-    ``off = FL_ORDER[row // 8] * 16``. No gathers are ever needed on TPU:
+    ``off = FL_ORDER[row // 8] * 16``. No gathers are ever needed:
     pack/unpack/delta become static lane slices + shifts/masks.
 
   * The per-dtype row offsets ``FL_ORDER[o] * 16`` for o in [0, T/8) are

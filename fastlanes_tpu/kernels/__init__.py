@@ -1,25 +1,21 @@
-"""Pallas TPU kernels — the hot compute path. Same signatures as the ops
-layer; transparently falls back to XLA ops off-TPU."""
+"""Public codec entry points: the XLA ops codecs, and the original-order
+decodes routed to the formulation measured fastest on the running device
+(see codecs.py and routing.py)."""
 
-from . import pallas_codecs
-from .pallas_codecs import (
-    delta_pack,
+from . import codecs
+from ..ops.bitpack import pack, pack_map, unpack
+from ..ops.delta import delta_pack, undelta_pack, unzdelta_pack
+from ..ops.ffor import for_pack, unfor_pack
+from .codecs import (
     delta_pack_orig,
-    warmup,
-    for_pack,
-    pack,
-    pack_map,
-    undelta_pack,
     undelta_pack_orig,
-    unzdelta_pack,
-    unzdelta_pack_orig,
-    unfor_pack,
-    unpack,
     unpack_orig,
+    unzdelta_pack_orig,
+    warmup,
 )
 
 __all__ = [
-    "pallas_codecs", "pack", "pack_map", "unpack", "undelta_pack", "unzdelta_pack", "delta_pack",
+    "codecs", "pack", "pack_map", "unpack", "undelta_pack", "unzdelta_pack", "delta_pack",
     "for_pack", "unfor_pack", "warmup",
     "unpack_orig", "undelta_pack_orig", "unzdelta_pack_orig", "delta_pack_orig",
 ]

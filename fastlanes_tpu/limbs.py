@@ -1,17 +1,16 @@
-"""LimbPlanes: the TPU-native carrier for u64 column data.
+"""LimbPlanes: the device carrier for u64 column data.
 
-TPUs have no 64-bit vector integers, so u64 values live as two uint32
-limb planes (lo, hi). Two device layouts exist:
+u64 values live as two uint32 limb planes (lo, hi), so no path needs JAX's
+process-global x64 mode. Two device layouts exist:
 
   * separate planes — two (..., ) uint32 arrays. The fast form: decode
-    writes each plane with plain streaming stores (66.3e9 ints/s u64 W=3
-    on v5e);
+    writes each plane with plain streaming stores;
   * interleaved image — one (..., 2) uint32 array, the exact byte image
     of a little-endian uint64 buffer. Interleaving costs a strided
-    element shuffle that halves decode throughput (30.8e9 ints/s).
+    element shuffle.
 
 This class makes the separate-plane form the DEFAULT device read result
-(VERDICT r2 item 5) while keeping byte-image compatibility one call away:
+ while keeping byte-image compatibility one call away:
 
     planes = fio_device.read_file_device("u64_col.flt")   # LimbPlanes
     planes.lo, planes.hi          # uint32 jax arrays, consume on device
@@ -22,7 +21,7 @@ This class makes the separate-plane form the DEFAULT device read result
 
 Reference parity note: the Rust crate's u64 impl is `impl_packing!(u64)`
 (reference src/bitpacking.rs:234-237) — same semantics, scalar 64-bit
-words; the limb split is the TPU-first re-design (see ops/_engine.py).
+words; the limb split is this package's re-design (see ops/_engine.py).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """ctypes loader for the C++ host codec (builds lazily with g++).
 
-The native library is the host-runtime complement of the TPU compute path:
-data loaders / IO pipelines encode-decode on CPU at SIMD speed while chips
-run the Pallas kernels. It is also used in tests as an implementation
+The native library is the host-runtime complement of the device compute
+path: data loaders / IO pipelines encode-decode on CPU at SIMD speed while
+the accelerator decodes. It is also used in tests as an implementation
 independent of the NumPy oracle."""
 
 from __future__ import annotations

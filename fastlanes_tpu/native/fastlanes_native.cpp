@@ -1,7 +1,7 @@
 // fastlanes_native.cpp — C++ host-side FastLanes codec for fastlanes_tpu.
 //
-// Role in the framework: the host/runtime half of the stack. The TPU compute
-// path is JAX/XLA/Pallas; this library serves host-side encode/decode for IO
+// Role in the framework: the host/runtime half of the stack. The device
+// compute path is JAX/XLA; this library serves host-side encode/decode for IO
 // and data-loading pipelines, and doubles as an implementation of the codec
 // that is independent of the NumPy oracle for cross-checking conformance.
 //

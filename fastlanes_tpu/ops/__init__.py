@@ -1,9 +1,8 @@
-"""Pure-jnp XLA ops: batched, jit-traceable codec kernels (work on CPU + TPU).
+"""Pure-jnp XLA ops: batched, jit-traceable codec kernels (CPU and GPU).
 
 The mid-tier of the framework: exact FastLanes semantics expressed as static
-shift/mask DAGs XLA fuses into memory-bound passes. The Pallas kernels in
-`fastlanes_tpu.kernels` provide the hand-scheduled TPU fast path with the
-same signatures."""
+shift/mask DAGs XLA fuses into memory-bound passes. `fastlanes_tpu.kernels`
+holds the routed public entries with the same signatures."""
 
 from . import _engine, bitpack, delta, dispatch, ffor, single, transpose
 from .bitpack import pack, unpack, unpack_planes

@@ -1,8 +1,8 @@
 """Dtype engine: uniform integer vector ops over native jnp ints and u64 limbs.
 
-TPUs have no native 64-bit vector integers, so u64 blocks are processed as
-2x32-bit limb pairs (SURVEY.md §7 hard part (a)). This module gives the jnp
-ops and the Pallas kernels one shared vocabulary:
+u64 blocks are processed as 2x32-bit limb pairs, so no path needs JAX's
+process-global x64 mode (SURVEY.md §7 hard part (a)). This module gives the
+jnp ops one shared vocabulary:
 
   * a "vec" is either a jnp array (u8/u16/u32 native) or an (lo, hi) tuple of
     uint32 arrays (u64);

@@ -1,6 +1,6 @@
 """jnp bit-packing ops: batched, jit-traceable, XLA-fused.
 
-The TPU-native re-design of the reference's pack!/unpack! macro kernels
+A vectorized re-design of the reference's pack!/unpack! macro kernels
 (reference src/macros.rs:35-98 / 101-174 driven by src/bitpacking.rs:65-106):
 
   * the per-lane loop of the reference becomes the vector axis — every op
@@ -18,7 +18,7 @@ The kernel-body hooks of the reference macros (`|$idx, $elem|`) survive as
 the `pack_row_stream` / `unpack_row_stream` generators, which delta.py and
 ffor.py compose into fused kernels exactly like delta.rs:48-63 / ffor.rs:24-50.
 
-u64 runs on 2x32-bit limbs via the engine (TPUs have no 64-bit vector ints).
+u64 runs on 2x32-bit limbs via the engine (ops/_engine.py).
 """
 
 from __future__ import annotations
@@ -82,9 +82,7 @@ def unpack_row_stream(packed_vec, width: int, dtype, get_word=None):
     The vectorized analogue of the reference unpack! macro's kernel-body hook
     (macros.rs:101-174) — fused consumers iterate this stream.
 
-    `get_word(w)` optionally overrides how packed word w is fetched (the
-    Pallas kernels stage words through aligned VMEM scratch; see
-    kernels/MOSAIC_NOTES.md).
+    `get_word(w)` optionally overrides how packed word w is fetched.
     """
     dtype = layout.canon_dtype(dtype)
     t = layout.bit_width(dtype)
@@ -180,13 +178,12 @@ def pack(values, width: int, dtype) -> "jnp.ndarray":
 
 def pack_map(fn, values, width: int, dtype):
     """pack(fn(values)) with `fn` applied PER TRANSPOSED ROW SLICE — the
-    fused-encode public entry (VERDICT r2 item 4).
+    fused-encode public entry.
 
     Writing `pack(fn(values))` materializes fn(values) first: the packed
     words read many overlapping row slices of it, and XLA materializes an
     elementwise producer that has many slice consumers — a full extra
-    read+write of the input charged to the encode (benchmarks/NOTES.md:
-    80.3e9 vs 130.9e9 ints/s, u32 W=3 on v5e). This entry applies `fn`
+    read+write of the input charged to the encode. This entry applies `fn`
     AFTER each row-slice read, so every fn instance has a single consumer
     and XLA fuses it into the packed-word production: the codec's true
     encode throughput, through a public API. `delta_pack`/`for_pack` are
@@ -240,21 +237,15 @@ def unpack(packed, width: int, dtype, *, planes: bool = False) -> "jnp.ndarray":
     return eng.from_vec(out, dtype, like=packed)
 
 
-# -- W == T relayout strategies (VERDICT r3 item 2) --------------------------
+# -- W == T relayout strategies ----------------------------------------------
 # At full width the packed image holds the transposed values verbatim, one
 # T-row per LANES-wide word group; unpack is a static permutation of those
-# groups. The concat assemble measured 43.8e9 ints/s u32 on v5e against a
-# ~102e9 copy SoL, so alternative relayout lowerings race for the slot:
-#   assemble   the classic row-stream concat (current default)
+# groups. Several relayout lowerings race for the slot:
+#   assemble   the classic row-stream concat (default)
 #   gather     one static 1024-lane gather
 #   grouptake  (B, T, LANES) view + take on the group axis
-#   mxu        one-hot group-permutation einsum on 16-bit planes via the
-#              MXU (exact: every output sums exactly one product value*1,
-#              values < 2^16 are exact f32; zeros add exactly)
-#   mxu8       same on 8-bit planes in bf16 (all operands exactly
-#              representable)
-# benchmarks/exp_wt.py races them on hardware WITH on-device bit-exactness
-# gates; tools/tune_routing.py records the winner under "unpack_wt".
+#   bitrev     pure reshape/transpose (see _wt_bitrev)
+# tools/tune_routing.py records the winner under "unpack_wt".
 
 
 @functools.lru_cache(maxsize=None)
@@ -317,27 +308,10 @@ def _wt_one(x2d, dtype, strategy, perm=None, kind="unpack"):
         return jnp.take(x2d.reshape(b, t, nl),
                         jnp.asarray(np.asarray(perm, np.int32)),
                         axis=1).reshape(b, layout.BLOCK)
-    if strategy in ("mxu", "mxu8"):
-        bits = 8 if strategy == "mxu8" else 16
-        jdt = x2d.dtype
-        P = np.zeros((t, t), np.float32)
-        P[np.arange(t), perm] = 1.0
-        X = x2d.reshape(b, t, nl)
-        elem_bits = np.dtype(str(jdt)).itemsize * 8  # u64 arrives as u32 planes
-        out = None
-        for i in range(max(1, elem_bits // bits)):
-            plane = X if bits >= elem_bits else \
-                ((X >> jdt.type(i * bits)) & jdt.type((1 << bits) - 1))
-            plane = plane.astype(jnp.bfloat16 if bits <= 8 else jnp.float32)
-            Pm = jnp.asarray(P, jnp.bfloat16 if bits <= 8 else jnp.float32)
-            y = jnp.einsum("hg,bgl->bhl", Pm, plane,
-                           preferred_element_type=jnp.float32).astype(jdt)
-            out = y if out is None else out | (y << jdt.type(i * bits))
-        return out.reshape(b, layout.BLOCK)
     raise ValueError(f"unknown W=T strategy {strategy!r}")
 
 
-_WT_IMPLS = ("assemble", "gather", "grouptake", "mxu", "mxu8", "bitrev")
+_WT_IMPLS = ("assemble", "gather", "grouptake", "bitrev")
 
 
 def _unpack_wt(vec, dtype, strategy):
@@ -387,10 +361,8 @@ def unpack_planes(packed, width: int, dtype):
     """u64 unpack returning SEPARATE (lo, hi) uint32 planes, each (B, 1024),
     instead of the interleaved (..., 1024, 2) limb image.
 
-    The performance form for u64 consumers that stay on device: skipping
-    the interleaving stack measured +57% materialized decode on v5e
-    (48.6e9 vs 30.9e9 ints/s, u64 W=3 — the stack's strided element
-    interleave is the bottleneck, not the unpacking). The byte-compatible
+    The performance form for u64 consumers that stay on device: it skips
+    the strided element interleave of the limb image. The byte-compatible
     limb image is `jnp.stack([lo, hi], axis=-1)` when needed off-device."""
     dtype = layout.canon_dtype(dtype)
     if not eng.is_limb(dtype):

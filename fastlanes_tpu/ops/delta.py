@@ -74,6 +74,29 @@ def undelta_pack(packed, base, width: int, dtype, *, planes: bool = False):
     return eng.from_vec(out, dtype, like=packed)
 
 
+def unzdelta_pack(packed, base, width: int, dtype, *, planes: bool = False):
+    """Fused zdelta decode: unpack -> unzigzag -> per-lane prefix sum.
+    planes=True (u64 only): separate (lo, hi) uint32 planes out."""
+    import jax
+    import jax.numpy as jnp
+
+    from .. import transforms
+    from .bitpack import _check_planes, unpack
+
+    dtype = layout.canon_dtype(dtype)
+    _check_planes(planes, dtype)
+    if eng.is_limb(dtype):
+        zlo, zhi = unpack(packed, width, dtype, planes=True)
+        deltas = transforms.zigzag_decode_limb(zlo, zhi)
+        out = undelta(deltas, base, dtype, planes=True)
+        return out if planes else eng.from_vec(out, dtype, like=packed)
+    t = layout.bit_width(dtype)
+    deltas = jax.lax.bitcast_convert_type(
+        transforms.zigzag_decode(jnp.asarray(unpack(packed, width, dtype))),
+        jnp.dtype(f"uint{t}"))
+    return undelta(deltas, base, dtype)
+
+
 def delta_pack(values, base, width: int, dtype):
     """Fused encode: pack(delta(values, base)) in one pass (composition the
     reference leaves to callers, delta.rs:80-96)."""

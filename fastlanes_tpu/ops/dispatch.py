@@ -1,4 +1,4 @@
-"""Runtime-width dispatch: the TPU equivalent of the reference's
+"""Runtime-width dispatch: the JAX equivalent of the reference's
 `unchecked_pack` / `unchecked_unpack` width match tables
 (reference src/bitpacking.rs:82-95, 115-128, 186-203).
 

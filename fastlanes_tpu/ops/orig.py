@@ -2,10 +2,9 @@
 
 FLT delta/zdelta/rle chunks store TRANSPOSED blocks (transpose.rs:11-15
 composed with delta.rs:25-45 in the reference); after decode the consumer
-wants original order back (transpose.rs:18-22). Round-2 measurement: a
-standalone device untranspose runs at ~17e9 ints/s u32 against a ~102e9
-copy speed-of-light and gates every sorted-column file read (VERDICT r2
-item 1). Decode-then-permute pays that relayout on the full output.
+wants original order back (transpose.rs:18-22). Decode-then-permute pays
+a standalone relayout pass over the full output on every sorted-column
+file read.
 
 This module never materializes the transposed image: it decodes each
 ORIGINAL-order output position directly from its packed word plane,
@@ -13,7 +12,7 @@ ORIGINAL-order output position directly from its packed word plane,
     orig[b, seg*T + r] = ((plane_k[b, lane_of_seg(seg)] >> sh) | stitch)
         & mask,   k = (r*W) // T,  sh = (r*W) % T
 
-using only TPU-friendly vocabulary:
+using only gather-free vector vocabulary:
 
   * per-word-plane lane-repeat broadcasts ((B, LANES) -> (B, 1024) with
     each lane repeated T consecutive positions — sublane broadcast),
@@ -36,7 +35,7 @@ transposed image materialized.
 
 Reference parity: macros.rs:35-174 (pack/unpack) and delta.rs:25-63
 composed with transpose.rs:11-22; the output/input-domain rewrites are
-TPU-first structure with no reference counterpart.
+new structure with no reference counterpart.
 """
 
 from __future__ import annotations
@@ -131,8 +130,8 @@ def _seg_cumsum(nat, dtype):
 
 
 # -- u64 limb-domain building blocks ----------------------------------------
-# TPUs have no 64-bit vector ints: u64 words are (lo, hi) uint32 plane
-# pairs, shifts become funnels across the limbs with VECTOR shift amounts
+# The x64-free u64 form: u64 words are (lo, hi) uint32 plane pairs,
+# shifts become funnels across the limbs with VECTOR shift amounts
 # (trace-time constant arrays — one per output position), and the delta
 # prefix sum propagates carries via a second cumsum of overflow indicators.
 
@@ -140,7 +139,7 @@ def _seg_cumsum(nat, dtype):
 def _shr64_vec(lo, hi, sh):
     """(lo, hi) >> sh elementwise, sh a uint32 array in [0, 64). Shift
     operands are kept in [0, 31] everywhere (shift-by->=width is undefined
-    on TPU vectors); discarded lanes are masked by the wheres."""
+    in XLA); discarded lanes are masked by the wheres."""
     import jax.numpy as jnp
 
     s = sh & jnp.uint32(31)
@@ -235,10 +234,9 @@ def _check_dtype(dtype) -> str:
     return layout.canon_dtype(dtype)
 
 
-# -- r4 formulations: all relayout on the PACKED image, O(1) output passes --
-# BENCH_r03 measured the select-chain 'od' at 2.6% of SoL at W=25 (it does
-# W lane-repeat broadcasts + ~2W full-width selects — O(W) full-block
-# passes; VERDICT r3 item 2). These two do ONE pass over the output:
+# -- gat / rep: all relayout on the PACKED image, O(1) output passes --
+# The select-chain 'od' does W lane-repeat broadcasts + ~2W full-width
+# selects — O(W) full-block passes. These two do ONE pass over the output:
 #
 #   gat  words[b, s, r] = packed[b, k(r)*NL + lane_of_seg(s)] via one
 #        static (NL, T)-indexed jnp.take per operand (plus the straddle
@@ -251,11 +249,8 @@ def _check_dtype(dtype) -> str:
 # [s*T, (s+1)*T) = rows 0..T of transposed lane lane_of_seg(s) — SURVEY §2
 # contiguity fact), so the delta cumsum runs along the minor axis and no
 # chunk permutation remains. Work is (B, NL, T) rank-3 throughout with a
-# final free reshape to (B, 1024); v5e round-4 race: the flattened (B, 1024)
-# twins with tiled (1024,) index/shift vectors measured up to 1.9x SLOWER
-# (benchmarks/exp_orig_r4.py), so rank-3 it is. rep wins narrow widths
-# (u32 W=3 28.0e9, W=8 35.4e9 fused-delta), gat wide (W=25 16.5e9 vs od's
-# 1.39e9); the routing table picks per (op, dtype, width).
+# final free reshape to (B, 1024). The routing table picks among od, gat
+# and rep per (op, dtype, width); with no table, gat.
 # Reference semantics: macros.rs:142-170 restated as the uniform two-term
 # extract value = ((word_k >> sh) | (word_{k+1} << (T-sh))) & mask(W).
 
@@ -524,9 +519,9 @@ def _base_2d(base, dtype, vec):
 
 
 # -- encode duals: ORIGINAL-order values -> delta/zdelta wire format ---------
-# The encode path previously materialized the transposed image first (a
-# standalone ~22.8e9 ints/s permute on v5e) before delta+pack. Here the
-# transpose never exists: transposed(r, l) = orig[seg_of_lane[l]*T + r], so
+# The composed encode materializes the transposed image first (a standalone
+# permute) before delta+pack. Here the transpose never exists:
+# transposed(r, l) = orig[seg_of_lane[l]*T + r], so
 # a (B, LANES, T) view + ONE static lane-axis take exposes every transposed
 # row as a minor-axis slice, and delta/zigzag/pack trace straight off it
 # (the encode dual of undelta_pack_orig; reference transpose.rs:11-15 +

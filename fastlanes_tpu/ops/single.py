@@ -1,7 +1,7 @@
 """jnp unpack_single: O(1) random access into packed blocks via the
 compile-time inverse index tables (reference src/bitpacking.rs:131-232).
 
-On TPU this is an on-device gather: per queried index we read at most two
+On the device this is a gather: per queried index we read at most two
 packed words per block (lo/hi stitch, bitpacking.rs:164-178). Vectorized
 over both the batch-of-blocks axis and the index axis, so `unpack_single`
 doubles as a batched `take` for packed columns.

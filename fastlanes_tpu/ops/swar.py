@@ -1,12 +1,11 @@
 """SWAR (SIMD-within-a-register) bitpack codecs for the sub-word dtypes.
 
-u8/u16 values occupy one 32-bit vector lane each on TPU (vregs are 32-bit),
-so the standard ops/kernel paths run at 1/4 resp. 1/2 density — measured
-~19% of their HBM speed-of-light. This module bitcasts the arrays to the
-uint32 domain (4 u8 / 2 u16 per lane, little-endian) and runs the SAME
-FastLanes row formulas with byte-/halfword-replicated mask constants —
-the hand-scheduled equivalent of the SIMD byte ops LLVM auto-vectorizes
-the Rust reference into (reference macros.rs:67-69, README.md:9-10).
+The standard ops paths compute u8/u16 rows one value per vector element.
+This module bitcasts the arrays to the uint32 domain (4 u8 / 2 u16 per lane,
+little-endian) and runs the SAME FastLanes row formulas with byte-/halfword-
+replicated mask constants — the hand-scheduled equivalent of the SIMD byte
+ops LLVM auto-vectorizes the Rust reference into (reference
+macros.rs:67-69, README.md:9-10).
 
 Why the existing formulas survive the packing almost unchanged
 (cross-sub-word leakage analysis):
@@ -24,35 +23,10 @@ Why the existing formulas survive the packing almost unchanged
 
 Both dtypes map to 32 uint32 columns per packed word and per transposed
 row, so the layout arithmetic is shared. Everything is pure jnp — XLA
-fuses it like the ops path, it runs on CPU for conformance tests, and no
-Mosaic toolchain risk is taken.
+fuses it like the ops path and runs on CPU for conformance tests.
 
-MEASURED RESULT (v5e, 16384 blocks, barrier harness): the SWAR path LOSES
-2-3x to both existing strategies — u8 W=3 decode 40.2e9 vs ops 115.7e9 /
-pallas 124.4e9; u16 W=3 decode 35.0e9 vs ops 121.6e9. The bitcast
-u8<->u32 domain conversion is itself a lane-domain repack (4 consecutive
-bytes gathered into one 32-bit lane), which XLA lowers through the same
-relayout machinery that sank the wide-decode experiment
-(kernels/MOSAIC_NOTES.md) — the 4x op-count win never materializes.
-Kept, bit-exact and tested, as the documented negative result; NOT
-routed. Follow-up: skipping the OUTPUT bitcast (raw u32 image out)
-doubles throughput to 78.5e9 — still below plain ops, so the image-domain
-variant is not worth surfacing either.
-
-ROUND-2 RESULT (r4, benchmarks/exp_swar_r4.py, 32768 blocks, v5e): both
-costs the round-1 postmortem named were removed — u32-NATIVE input (the
-packed bytes viewed uint32, zero device conversion; the file layer owns
-the carrier) and u32-image output (byte-identical to the sub-word block),
-with flat single-take formulations replacing the (B, 32) slabs. SWAR
-STILL LOSES at every config: u16 W=3 img_gat 41.3e9 / img_rep 40.7 vs
-ops 131.6; u8 W=3 img_rep 91.8 vs ops 119.5; u8 W=1 img_rep 137.2 vs ops
-149.1. The closing of the gap at trivial widths (W=1: 0.92x) shows the
-approach scales, but the per-column constant-vector shifts/masks on the
-image domain cost more than the sub-word density saves — XLA already
-achieves enough 2x/4x packing on the plain sub-word ops path. CONCLUSION:
-SWAR-in-XLA is dead for this codec; the remaining sub-word headroom (ops
-u16 W=3 = 38% of its HBM SoL) is a Mosaic-kernel problem (packed i16/i8
-stores), not a formulation problem.
+It is not routed, and whether it beats the plain sub-word ops path on a
+GPU has not been measured (ROADMAP C3).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """jnp Transpose codec (reference src/transpose.rs:11-22, 29-36).
 
-TPU-first design: instead of the reference's fully-unrolled 1024-element
-gather, the 04261537 interleave is expressed as reshape + small-axis
-permutation + axis transpose, which XLA lowers to vreg shuffles — no gather:
+Instead of the reference's fully-unrolled 1024-element gather, the 04261537
+interleave is expressed as reshape + small-axis permutation + axis
+transpose, which XLA lowers without a gather:
 
   transpose:    out[(r,g,l)] = in[(l, FL_ORDER[g], r)]   with in as (16,8,8)
   untranspose:  inverse (FL_ORDER is self-inverse)
@@ -37,14 +37,11 @@ def _untranspose_one(arr2d):
 
 
 # -- standalone relayout strategies (routing keys transpose_st /
-#    untranspose_st). The reshape/permute composite measured 22.8/16.9e9
-#    ints/s u32 on v5e against ~102e9 copy SoL (r2); the one static
-#    1024-gather is the measured alternative (a full one-hot MXU matmul is
-#    flop-bound at ~4096 flops/int — below copy SoL — so the MXU only
-#    helps in the segment form raced by benchmarks/exp_untranspose.py).
-#    NOTE: the hot paths no longer go through these ops at all — decode
-#    fuses the untranspose (ops/orig.py) and encode the transpose
-#    (delta_pack_orig); these standalone entries remain parity API (C11).
+#    untranspose_st): the reshape/permute composite, one static
+#    1024-gather, or a pure axis reversal. The default original-order
+#    decodes fuse the untranspose (ops/orig.py) and the encode dual the
+#    transpose (delta_pack_orig); these entries serve the composed
+#    strategies and the parity API.
 
 
 import functools
@@ -77,99 +74,21 @@ def _untranspose_axes_one(arr2d):
 
 
 @functools.lru_cache(maxsize=None)
-def _mxu2_factors(kind: str, dtype: str):
-    """Two-sided MXU factorization: within a block the 04261537 interleave
-    is Out = A · Xᵀ · B in the (T, LANES) matrix view — the transposed lane
-    l is a CONTIGUOUS original segment, so the 1024-permutation factors
-    into a row perm × matrix transpose × column perm. Two (≤64)² one-hot
-    matmuls per block ≈ 2·min(T,NL) MACs/element — 16-32x fewer flops than
-    the flat 1024-wide one-hot form (which IS flop-bound, exp_untranspose).
-    Every output element sums exactly one product, so f32 planes of ≤16
-    bits are exact."""
-    import numpy as np
-
-    t = layout.bit_width(dtype)
-    nl = layout.lanes(dtype)
-    seg_of_lane = [layout.transpose_index(layout.index(0, l)) // t
-                   for l in range(nl)]
-    lane_of_seg = [0] * nl
-    for l, s in enumerate(seg_of_lane):
-        lane_of_seg[s] = l
-    g_of_r = [layout.row_offset(r) // nl for r in range(t)]
-    r_of_g = [0] * t
-    for r, g in enumerate(g_of_r):
-        r_of_g[g] = r
-    if kind == "untranspose":
-        # Out[s, r] = In[g(r), lane_of_seg(s)]
-        A = np.zeros((nl, nl), np.float32)
-        A[np.arange(nl), lane_of_seg] = 1.0
-        B = np.zeros((t, t), np.float32)
-        B[g_of_r, np.arange(t)] = 1.0
-    else:
-        # Out[g, l] = InO[seg_of_lane(l), r_of_g(g)]
-        A = np.zeros((nl, nl), np.float32)
-        A[np.arange(nl), seg_of_lane] = 1.0
-        B = np.zeros((t, t), np.float32)
-        B[r_of_g, np.arange(t)] = 1.0
-    return A, B
-
-
-def _mxu2_fn(kind: str, dtype: str):
-    t = layout.bit_width(dtype)
-    nl = layout.lanes(dtype)
-    A_np, B_np = _mxu2_factors(kind, dtype)
-
-    def fn(arr2d):
-        jdt = arr2d.dtype
-        b = arr2d.shape[0]
-        A = jnp.asarray(A_np)
-        B = jnp.asarray(B_np)
-        elem_bits = arr2d.dtype.itemsize * 8
-        planes = 2 if elem_bits > 16 else 1
-        out = None
-        for i in range(planes):
-            if planes == 1:
-                p = arr2d
-            else:
-                p = (arr2d >> jdt.type(i * 16)) & jdt.type(0xFFFF)
-            if kind == "untranspose":
-                X = p.astype(jnp.float32).reshape(b, t, nl)
-                Z = jnp.einsum("gr,bgl->brl", B, X,
-                               preferred_element_type=jnp.float32)
-                Y = jnp.einsum("sl,brl->bsr", A, Z,
-                               preferred_element_type=jnp.float32)
-            else:
-                X = p.astype(jnp.float32).reshape(b, nl, t)
-                Z = jnp.einsum("ls,bsr->blr", A, X,
-                               preferred_element_type=jnp.float32)
-                Y = jnp.einsum("blr,rg->bgl", Z, B,
-                               preferred_element_type=jnp.float32)
-            y = Y.astype(jdt).reshape(b, layout.BLOCK)
-            out = y if out is None else out | (y << jdt.type(i * 16))
-        return out
-
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
 def _st_strategy(op: str) -> str:
     from ..kernels import routing
 
     strat = routing.best_path(op, "u32", 0)  # dtype-independent permutation
-    return (strat if strat in ("permute", "gather", "axes", "mxu")
-            else "permute")
+    return strat if strat in ("permute", "gather", "axes") else "permute"
 
 
 @functools.lru_cache(maxsize=None)
-def _one_fn(kind: str, strategy: str, dtype: str = "u32"):
+def _one_fn(kind: str, strategy: str):
     if strategy == "gather":
         return _gather_one(layout.transpose_perm() if kind == "transpose"
                            else layout.untranspose_perm())
     if strategy == "axes":
         return (_transpose_axes_one if kind == "transpose"
                 else _untranspose_axes_one)
-    if strategy == "mxu":
-        return _mxu2_fn(kind, dtype)
     return _transpose_one if kind == "transpose" else _untranspose_one
 
 
@@ -178,7 +97,7 @@ def _apply(kind, values, dtype, planes=False):
 
     dtype = layout.canon_dtype(dtype)
     _check_planes(planes, dtype)
-    fn = _one_fn(kind, _st_strategy(f"{kind}_st"), dtype)
+    fn = _one_fn(kind, _st_strategy(f"{kind}_st"))
     vec = eng.to_vec(values, dtype)
     vec, had_batch = eng.promote_shape(vec, dtype)
     if eng.is_limb(dtype):

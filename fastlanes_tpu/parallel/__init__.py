@@ -1,10 +1,10 @@
 """Distribution layer: mesh builders + shard_map codec execution.
 
-New TPU-native surface (the reference crate is single-core SIMD only; see
+New surface (the reference crate is single-core SIMD only; see
 SURVEY.md §2 parallelism disclosure): independent 1024-value blocks are
 embarrassingly data-parallel, so the block axis shards over a 1-D device
 mesh; per-batch scalars (FoR references, widths, delta bases) replicate;
-packed outputs optionally all-gather in vector order over ICI."""
+packed outputs optionally all-gather in vector order."""
 
 from .mesh import make_mesh, local_device_count, setup_distributed
 from .shard import (

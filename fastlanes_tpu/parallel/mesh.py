@@ -18,8 +18,9 @@ def local_device_count() -> int:
 def make_mesh(n_devices: Optional[int] = None, axis: str = BLOCK_AXIS,
               devices: Optional[Sequence] = None) -> Mesh:
     """1-D mesh over the block axis — the natural FastLanes topology: blocks
-    never interact, so data-parallel over all chips (ICI within a slice, DCN
-    across hosts is handled by jax.distributed device ordering)."""
+    never interact, so data-parallel over all devices (several hosts are
+    handled by jax.distributed device ordering). The mesh follows the
+    algorithm, not the interconnect."""
     if devices is None:
         devices = jax.devices()
     if n_devices is not None:
@@ -33,10 +34,10 @@ def setup_distributed(coordinator_address: Optional[str] = None,
                       num_processes: Optional[int] = None,
                       process_id: Optional[int] = None) -> int:
     """Multi-host bring-up: initialize jax.distributed when running one
-    process per host on a pod slice. No-op for single-process runs.
+    process per host. No-op for single-process runs.
 
     Returns the global device count. The codec needs no further host logic —
-    shard_map + the mesh handle cross-host collectives over DCN/ICI."""
+    shard_map + the mesh handle cross-host collectives."""
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,

@@ -9,8 +9,8 @@ adds cross-block coordination:
   * sharded_roundtrip_check — psum'd mismatch count (validation/monitoring)
 
 Per-column scalars (FoR reference, delta base) are replicated via P(None).
-Works identically on a virtual CPU mesh, one TPU host, or a multi-host pod
-slice (mesh built over jax.devices() after jax.distributed.initialize)."""
+Works identically on a virtual CPU mesh, the GPUs of one host, or several
+hosts (mesh built over jax.devices() after jax.distributed.initialize)."""
 
 from __future__ import annotations
 
@@ -22,7 +22,6 @@ from jax.sharding import PartitionSpec as P
 
 from ..core import layout
 from ..ops import _engine as eng
-from ..ops import bitpack, delta as delta_mod, ffor
 
 
 def _block_spec(dtype, axis):
@@ -40,40 +39,20 @@ def _pad_to(arr, mult):
     return arr, b
 
 
-
-def _resolve_kernels(use_kernels, name, width, dtype):
-    """use_kernels="auto" -> the measured fastest path for this config
-    (kernels.routing) on TPU, ops elsewhere. True/False/"interpret" pass
-    through (force kernel / ops / interpret-mode kernel)."""
-    if use_kernels == "auto":
-        from ..kernels import pallas_codecs as pk
-        from ..kernels import routing
-
-        return bool(pk._on_tpu() and routing.use_pallas(name, dtype, width))
-    return use_kernels
-
-
 @functools.lru_cache(maxsize=None)
-def _build_sharded(name, use_kernels, width, dtype, axis, mesh, param,
-                   planes=False, orig_strategy="compose"):
+def _build_sharded(name, width, dtype, axis, mesh, param, planes=False):
     """jit(shard_map(codec)) — cached so repeated calls with the same
     (op, mesh, width, dtype) hit one compiled executable instead of
     re-tracing an eager shard_map per call. `param` describes the second
     operand: None, ('rep', ndim) replicated, or ('blk', ndim) block-sharded.
     planes=True (u64 decode): the codec returns separate (lo, hi) uint32
-    planes, each block-sharded — no interleaving stack on the chip."""
-    fn = _kernel_or_op(name, use_kernels, planes=planes,
-                       orig_strategy=orig_strategy)
+    planes, each block-sharded — no interleaving stack on the device."""
+    fn = _codec_fn(name, planes=planes)
     spec = _block_spec(dtype, axis)
     out_spec = (P(axis, None), P(axis, None)) if planes else spec
-    # pallas_call's out_shape carries no varying-across-mesh info, so the
-    # shard_map replication checker cannot type the kernel path — disable it
-    # there (the ops path keeps the static check).
-    check = not use_kernels
     if param is None:
         sharded = jax.shard_map(lambda v: fn(v, width, dtype), mesh=mesh,
-                                in_specs=(spec,), out_specs=out_spec,
-                                check_vma=check)
+                                in_specs=(spec,), out_specs=out_spec)
     else:
         kind, ndim = param
         if kind == "blk":
@@ -81,8 +60,7 @@ def _build_sharded(name, use_kernels, width, dtype, axis, mesh, param,
         else:
             p_spec = P(*([None] * ndim))
         sharded = jax.shard_map(lambda v, p: fn(v, p, width, dtype), mesh=mesh,
-                                in_specs=(spec, p_spec), out_specs=out_spec,
-                                check_vma=check)
+                                in_specs=(spec, p_spec), out_specs=out_spec)
     return jax.jit(sharded)
 
 
@@ -92,75 +70,34 @@ def _slice_out(out, b, planes):
     return out[:b]
 
 
-def _resolve_orig(use_kernels, orig_name, width, dtype, planes):
-    """Resolve an original-order decode request to
-    (name, use_kernels, orig_strategy). 'auto' takes the measured winner
-    among od/compose (routing; compose's inner decode is itself routed);
-    explicit False takes the output-domain ops path, True/'interpret'
-    compose around that kernel path. u64 od emits (lo, hi) planes, so it
-    needs planes=True; the interleaved-image convention composes."""
-    dtype = layout.canon_dtype(dtype)
-    od_ok = planes or not eng.is_limb(dtype)
-    if use_kernels == "auto":
-        from ..kernels import routing
-
-        strat = routing.best_path(orig_name, dtype, width)
-        if strat == "od" and od_ok:
-            return orig_name, False, "od"
-        if strat == "composeo":
-            # forced-ops decode + untranspose fused into the shard's trace
-            return orig_name, False, "compose"
-        base = _ORIG_BASE[orig_name]
-        return orig_name, _resolve_kernels("auto", base, width, dtype), "compose"
-    if not use_kernels and od_ok:
-        return orig_name, False, "od"
-    return orig_name, use_kernels, "compose"
-
-
-def _sharded_unary(name, use_kernels, mesh, arr, width, dtype, axis, planes=False,
-                   orig_strategy="compose"):
-    if name not in _ORIG_BASE:
-        use_kernels = _resolve_kernels(use_kernels, name, width, dtype)
-    call = _build_sharded(name, use_kernels, width, dtype, axis, mesh, None,
-                          planes=planes, orig_strategy=orig_strategy)
+def _sharded_unary(name, mesh, arr, width, dtype, axis, planes=False):
+    call = _build_sharded(name, width, dtype, axis, mesh, None, planes=planes)
     padded, b = _pad_to(jnp.asarray(arr), mesh.shape[axis])
     return _slice_out(call(padded), b, planes)
 
 
-def sharded_pack(mesh, values, width, dtype, axis="blocks", use_kernels="auto"):
-    """Data-parallel pack: each device packs its shard of blocks via the
-    measured fastest path for the config (use_kernels="auto"; True forces
-    the Pallas kernel, False the XLA ops). No collectives."""
-    return _sharded_unary("pack", use_kernels, mesh, values, width, dtype, axis)
+def sharded_pack(mesh, values, width, dtype, axis="blocks"):
+    """Data-parallel pack: each device packs its shard of blocks. No
+    collectives."""
+    return _sharded_unary("pack", mesh, values, width, dtype, axis)
 
 
-def sharded_unpack(mesh, packed, width, dtype, axis="blocks", use_kernels="auto",
-                   planes=False, orig=False):
+def sharded_unpack(mesh, packed, width, dtype, axis="blocks", planes=False,
+                   orig=False):
     """planes=True (u64 only): (lo, hi) uint32 plane outputs, block-sharded —
     the fast device form (no interleaving stack). orig=True: decode straight
     to ORIGINAL order (untranspose fused per shard; see kernels.unpack_orig)."""
-    if orig:
-        name, use_kernels, strat = _resolve_orig(use_kernels, "unpack_orig",
-                                                 width, dtype, planes)
-        return _sharded_unary(name, use_kernels, mesh, packed, width, dtype,
-                              axis, planes=planes, orig_strategy=strat)
-    return _sharded_unary("unpack", use_kernels, mesh, packed, width, dtype,
-                          axis, planes=planes)
+    name = "unpack_orig" if orig else "unpack"
+    return _sharded_unary(name, mesh, packed, width, dtype, axis, planes=planes)
 
 
-def _sharded_delta_family(op, mesh, packed, base, width, dtype, axis,
-                          use_kernels, planes, orig):
+def _sharded_delta_family(op, mesh, packed, base, width, dtype, axis, planes,
+                          orig):
     packed, base = jnp.asarray(packed), jnp.asarray(base)
     per_block = base.ndim == packed.ndim and base.shape[0] == packed.shape[0]
     param = ("blk" if per_block else "rep", base.ndim)
-    strat = "compose"
-    if orig:
-        op, use_kernels, strat = _resolve_orig(use_kernels, op + "_orig",
-                                               width, dtype, planes)
-    else:
-        use_kernels = _resolve_kernels(use_kernels, op, width, dtype)
-    call = _build_sharded(op, use_kernels, width, dtype, axis, mesh,
-                          param, planes=planes, orig_strategy=strat)
+    call = _build_sharded(op + "_orig" if orig else op, width, dtype, axis,
+                          mesh, param, planes=planes)
     padded, b = _pad_to(packed, mesh.shape[axis])
     if per_block:
         base, _ = _pad_to(base, mesh.shape[axis])
@@ -168,38 +105,36 @@ def _sharded_delta_family(op, mesh, packed, base, width, dtype, axis,
 
 
 def sharded_undelta_pack(mesh, packed, base, width, dtype, axis="blocks",
-                         use_kernels="auto", planes=False, orig=False):
+                         planes=False, orig=False):
     """Fused delta decode. A shared per-lane base ((LANES,) or limb image) is
     replicated (P(None)); a per-block base ((B, LANES)[, 2]) is sharded along
     the block axis with the packed payload. orig=True decodes straight to
     original order (untranspose fused per shard)."""
     return _sharded_delta_family("undelta_pack", mesh, packed, base, width,
-                                 dtype, axis, use_kernels, planes, orig)
+                                 dtype, axis, planes, orig)
 
 
 def sharded_unzdelta_pack(mesh, packed, base, width, dtype, axis="blocks",
-                          use_kernels="auto", planes=False, orig=False):
+                          planes=False, orig=False):
     """Fused zdelta decode (unpack -> unzigzag -> prefix-sum) sharded over
     blocks; base replication/sharding rules as sharded_undelta_pack."""
     return _sharded_delta_family("unzdelta_pack", mesh, packed, base, width,
-                                 dtype, axis, use_kernels, planes, orig)
+                                 dtype, axis, planes, orig)
 
 
-def sharded_for_pack(mesh, values, reference, width, dtype, axis="blocks", use_kernels="auto"):
+def sharded_for_pack(mesh, values, reference, width, dtype, axis="blocks"):
     """FFoR encode with replicated scalar reference."""
     ref_arr = _ref_array(reference, dtype)
-    use_kernels = _resolve_kernels(use_kernels, "for_pack", width, dtype)
-    call = _build_sharded("for_pack", use_kernels, width, dtype, axis, mesh,
+    call = _build_sharded("for_pack", width, dtype, axis, mesh,
                           ("rep", ref_arr.ndim))
     padded, b = _pad_to(jnp.asarray(values), mesh.shape[axis])
     return call(padded, ref_arr)[:b]
 
 
 def sharded_unfor_pack(mesh, packed, reference, width, dtype, axis="blocks",
-                       use_kernels="auto", planes=False):
+                       planes=False):
     ref_arr = _ref_array(reference, dtype)
-    use_kernels = _resolve_kernels(use_kernels, "unfor_pack", width, dtype)
-    call = _build_sharded("unfor_pack", use_kernels, width, dtype, axis, mesh,
+    call = _build_sharded("unfor_pack", width, dtype, axis, mesh,
                           ("rep", ref_arr.ndim), planes=planes)
     padded, b = _pad_to(jnp.asarray(packed), mesh.shape[axis])
     return _slice_out(call(padded, ref_arr), b, planes)
@@ -207,7 +142,7 @@ def sharded_unfor_pack(mesh, packed, reference, width, dtype, axis="blocks",
 
 def global_max_bits(mesh, values, dtype, axis="blocks"):
     """Agree on one packing width across the whole mesh: per-device max, then
-    pmax over the block axis (rides ICI within a slice, DCN across hosts).
+    pmax over the block axis.
     Returns a replicated scalar uint32 of the max value's bit count."""
     dtype = layout.canon_dtype(dtype)
 
@@ -252,14 +187,12 @@ def all_gather_packed(mesh, packed_sharded, dtype, axis="blocks"):
                                  check_vma=False))(jnp.asarray(packed_sharded))
 
 
-def sharded_roundtrip_check(mesh, values, width, dtype, axis="blocks", use_kernels="auto"):
+def sharded_roundtrip_check(mesh, values, width, dtype, axis="blocks"):
     """pack -> unpack per shard, psum the mismatch count over the mesh.
     Returns a replicated scalar int32 (0 == bit-exact everywhere). The
     framework's distributed self-validation step."""
-    uk_pack = _resolve_kernels(use_kernels, "pack", width, dtype)
-    uk_unpack = _resolve_kernels(use_kernels, "unpack", width, dtype)
-    pack_fn = _kernel_or_op("pack", uk_pack)
-    unpack_fn = _kernel_or_op("unpack", uk_unpack)
+    pack_fn = _codec_fn("pack")
+    unpack_fn = _codec_fn("unpack")
 
     def local(v):
         p = pack_fn(v, width, dtype)
@@ -268,97 +201,26 @@ def sharded_roundtrip_check(mesh, values, width, dtype, axis="blocks", use_kerne
         return jax.lax.psum(bad, axis)
 
     spec = _block_spec(dtype, axis)
-    fn = jax.jit(jax.shard_map(local, mesh=mesh, in_specs=(spec,), out_specs=P(),
-                               check_vma=not (uk_pack or uk_unpack)))
+    fn = jax.jit(jax.shard_map(local, mesh=mesh, in_specs=(spec,), out_specs=P()))
     padded, _ = _pad_to(jnp.asarray(values), mesh.shape[axis])
     return fn(padded)
 
 
-def _ops_unzdelta_pack(p, b, w, dt, planes=False):
-    """XLA-ops zdelta decode: unpack -> unzigzag -> per-lane prefix sum."""
-    from .. import transforms as _tr
-
-    if eng.is_limb(dt):
-        zlo, zhi = bitpack.unpack(p, w, dt, planes=True)
-        deltas = _tr.zigzag_decode_limb(zlo, zhi)
-        lo, hi = delta_mod.undelta(deltas, b, dt, planes=True)
-        if planes:
-            return lo, hi
-        return eng.from_vec((lo, hi), dt, like=p)
-    t = layout.bit_width(dt)
-    deltas = jax.lax.bitcast_convert_type(
-        _tr.zigzag_decode(jnp.asarray(bitpack.unpack(p, w, dt))),
-        jnp.dtype(f"uint{t}"))
-    return delta_mod.undelta(deltas, b, dt)
+_ORIG = ("unpack_orig", "undelta_pack_orig", "unzdelta_pack_orig")
+_DECODES = ("unpack", "undelta_pack", "unzdelta_pack", "unfor_pack") + _ORIG
 
 
-#: original-order decode op -> its transposed-domain decode primitive
-_ORIG_BASE = {
-    "unpack_orig": "unpack",
-    "undelta_pack_orig": "undelta_pack",
-    "unzdelta_pack_orig": "unzdelta_pack",
-}
+def _codec_fn(name, planes=False):
+    """The per-shard codec: the public entry kernels.<name>. *_orig names
+    decode straight to ORIGINAL order, in the formulation kernels.routing
+    picks. planes=True: decodes return (lo, hi) uint32 planes (u64 fast
+    path)."""
+    from .. import kernels
 
-
-def _kernel_or_op(name, use_kernels, planes=False, orig_strategy="compose"):
-    """use_kernels: True = Pallas kernels (compiled on TPU, ops fallback
-    elsewhere); 'interpret' = Pallas kernels in interpret mode with a small
-    tile — runs the EXACT kernel code path (incl. the check_vma=False seam)
-    on the CPU test mesh; False = XLA ops. planes=True: decode ops return
-    (lo, hi) uint32 planes (u64 fast path). *_orig names decode straight to
-    ORIGINAL order: orig_strategy='od' is the output-domain formulation
-    (ops/orig.py, non-u64), 'compose' is decode + untranspose per shard."""
-    if name in _ORIG_BASE:
-        if orig_strategy == "od":
-            # the od fns return (lo, hi) plane tuples for u64 — the sharded
-            # wrapper only selects od with planes=True there (_resolve_orig)
-            from ..ops import orig as ops_orig
-
-            return {
-                "unpack_orig": lambda p, w, dt: ops_orig.unpack_orig(p, w, dt),
-                "undelta_pack_orig":
-                    lambda p, b, w, dt: ops_orig.undelta_pack_orig(p, b, w, dt),
-                "unzdelta_pack_orig":
-                    lambda p, b, w, dt: ops_orig.unzdelta_pack_orig(p, b, w, dt),
-            }[name]
-        from ..ops import transpose as transpose_mod
-
-        dec = _kernel_or_op(_ORIG_BASE[name], use_kernels, planes=planes)
-
-        def composed(*a, _dec=dec, _planes=planes):
-            return transpose_mod.untranspose(_dec(*a), a[-1], planes=_planes)
-
-        return composed
-    if planes and name not in ("unpack", "undelta_pack", "unzdelta_pack",
-                               "unfor_pack"):
+    if planes and name not in _DECODES:
         raise ValueError(f"planes output is decode-only, not {name!r}")
-    if use_kernels:
-        from .. import kernels
-
-        fns = {
-            "pack": kernels.pack,
-            "unpack": kernels.unpack,
-            "undelta_pack": kernels.undelta_pack,
-            "unzdelta_pack": kernels.unzdelta_pack,
-            "for_pack": kernels.for_pack,
-            "unfor_pack": kernels.unfor_pack,
-        }
-        fn = fns[name]
-        kw = {"planes": True} if planes else {}
-        if use_kernels == "interpret":
-            return lambda *a, _fn=fn: _fn(*a, tile_b=8, interpret=True, **kw)
-        if kw:
-            return lambda *a, _fn=fn: _fn(*a, **kw)
-        return fn
-    kw = {"planes": True} if planes else {}
-    return {
-        "pack": lambda v, w, dt: bitpack.pack(v, w, dt),
-        "unpack": lambda p, w, dt: bitpack.unpack(p, w, dt, **kw),
-        "undelta_pack": lambda p, b, w, dt: delta_mod.undelta_pack(p, b, w, dt, **kw),
-        "unzdelta_pack": functools.partial(_ops_unzdelta_pack, planes=planes),
-        "for_pack": lambda v, r, w, dt: ffor.for_pack(v, r, w, dt),
-        "unfor_pack": lambda p, r, w, dt: ffor.unfor_pack(p, r, w, dt, **kw),
-    }[name]
+    fn = getattr(kernels, name)
+    return functools.partial(fn, planes=True) if planes else fn
 
 
 def _ref_array(reference, dtype):

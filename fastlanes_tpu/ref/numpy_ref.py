@@ -15,7 +15,7 @@ has shape (B, 1024), packed buffers have shape (B, 1024*W//T). The lane axis
 and batch axis are both vectorized in NumPy; the row loop (T iterations) is
 a Python loop exactly mirroring the reference's unrolled `seq_t!` row loop.
 
-This module is the conformance oracle for the jnp ops, the Pallas kernels and
+This module is the conformance oracle for the jnp ops and
 the C++ host codec. It is NOT the fast path.
 """
 

@@ -159,8 +159,8 @@ def test_fio_table_float_columns(tmp_path, rng):
 @pytest.mark.parametrize("d", [0, 1, 2, 3, 7, 10])
 def test_div_pow10_correctly_rounded(rng, d):
     """The integer-domain division kernel == IEEE f32 division, bitwise
-    (TPU's hardware divide is not correctly rounded; this kernel is the
-    device decode's replacement — also validated on the real chip)."""
+    (the device decode divides in the integer domain so no backend's
+    float divide rounding can change the decoded bits)."""
     import jax
     import jax.numpy as jnp
 

@@ -5,7 +5,7 @@ v = i / 10^(e-f) (alp.py module docstring); the device emulates that single
 rounding in the uint32 limb domain (_div_pow10_f64_limbs). These tests pin
 the emulation bit-exactly against numpy's IEEE division over random,
 adversarial (near-halfway), and structural corner cases — on the CPU
-backend, where jax and the TPU run the identical uint32 op sequence.
+backend, which runs the same uint32 op sequence as any accelerator.
 """
 
 from __future__ import annotations
@@ -86,7 +86,7 @@ def test_div_pow10_f64_corners():
 
 
 def test_decode_device_f64_limb_image_matches_np(rng):
-    """decode_device on the (..., 2) limb image (x64 OFF — the TPU form)
+    """decode_device on the (..., 2) limb image (x64 OFF — the x64-free form)
     reproduces decode_np bit-exactly, exceptions included."""
     n = 8192
     ints = rng.integers(-(1 << 40), 1 << 40, n, dtype=np.int64)

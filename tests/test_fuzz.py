@@ -1,6 +1,6 @@
 """Seeded differential fuzzing: random (dtype, width, data shape, pipeline)
 configs must agree bit-for-bit across the NumPy oracle, the XLA ops layer,
-the C++ host codec, and (sampled — interpret mode is slow) Pallas kernels.
+the C++ host codec and the routed public entries.
 
 The fixed sweeps cover the (dtype, width) grid; this covers the *seams*:
 odd batch sizes (kernel grid padding), extreme values (all-zeros, all-max),
@@ -12,7 +12,7 @@ import pytest
 
 from fastlanes_tpu import native
 from fastlanes_tpu.core import layout
-from fastlanes_tpu.kernels import pallas_codecs as pk
+from fastlanes_tpu.kernels import codecs as pk
 from fastlanes_tpu.ops import bitpack, delta as delta_ops, ffor as ffor_ops
 from fastlanes_tpu.ref import numpy_ref as ref
 from fastlanes_tpu.utils.testing import from_jax_form, to_jax_form
@@ -98,16 +98,15 @@ def test_fuzz_delta_ffor_pipelines(seed):
         np.testing.assert_array_equal(native.for_pack(vals, refc, w, dt), fp)
 
 
-@pytest.mark.parametrize("seed", range(8))  # interpret mode is slow: sample
+@pytest.mark.parametrize("seed", range(8))
 def test_fuzz_pallas_interpret(seed):
+    """Random configs through the public routed entries (kernels.*)."""
     rng = np.random.default_rng(0x9A11 + seed)
     dt, w, vals = _gen_case(rng)
     gold = ref.pack(vals, w, dt)
-    got = from_jax_form(pk.pack(to_jax_form(vals, dt), w, dt,
-                                tile_b=4, interpret=True), dt)
+    got = from_jax_form(pk.pack(to_jax_form(vals, dt), w, dt), dt)
     np.testing.assert_array_equal(got, gold)
-    out = from_jax_form(pk.unpack(to_jax_form(gold, dt), w, dt,
-                                  tile_b=4, interpret=True), dt)
+    out = from_jax_form(pk.unpack(to_jax_form(gold, dt), w, dt), dt)
     np.testing.assert_array_equal(out, vals)
 
 
@@ -192,10 +191,10 @@ def test_fuzz_float_and_runs_files(seed, tmp_path):
 
 @pytest.mark.parametrize("seed", range(12))
 def test_fuzz_fused_kernels_interpret(seed):
-    """Random configs through the FUSED Pallas kernels in interpret mode
-    (undelta_pack / unzdelta_pack / unfor_pack), vs the oracle pipeline."""
+    """Random configs through the FUSED public entries (undelta_pack /
+    unzdelta_pack / unfor_pack), vs the oracle pipeline."""
     from fastlanes_tpu import fio
-    from fastlanes_tpu.kernels import pallas_codecs as pk
+    from fastlanes_tpu.kernels import codecs as pk
     from fastlanes_tpu.utils.testing import from_jax_form, to_jax_form
 
     rng = np.random.default_rng(0xFD5 + seed)
@@ -213,15 +212,14 @@ def test_fuzz_fused_kernels_interpret(seed):
         reference = int(vals.min())
         packed = ref.for_pack(vals, reference, w, dt)
         got = from_jax_form(pk.unfor_pack(to_jax_form(packed, dt), reference,
-                                          w, dt, tile_b=4, interpret=True), dt)
+                                          w, dt), dt)
         want = ref.unfor_pack(packed, reference, w, dt)
     elif kind == "delta":
         deltas = ref.delta(transposed, base, dt)
         wd = max(w, int(deltas.max()).bit_length())
         packed = ref.pack(deltas, wd, dt)
         got = from_jax_form(pk.undelta_pack(
-            to_jax_form(packed, dt), to_jax_form(base, dt), wd, dt,
-            tile_b=4, interpret=True), dt)
+            to_jax_form(packed, dt), to_jax_form(base, dt), wd, dt), dt)
         want = transposed
     else:
         deltas = ref.delta(transposed, base, dt)
@@ -229,8 +227,7 @@ def test_fuzz_fused_kernels_interpret(seed):
         wz = max(1, int(zz.max()).bit_length())
         packed = ref.pack(zz, wz, dt)
         got = from_jax_form(pk.unzdelta_pack(
-            to_jax_form(packed, dt), to_jax_form(base, dt), wz, dt,
-            tile_b=4, interpret=True), dt)
+            to_jax_form(packed, dt), to_jax_form(base, dt), wz, dt), dt)
         want = transposed
     np.testing.assert_array_equal(got, want)
 

@@ -34,7 +34,7 @@ def test_inverse_tables(dt):
 
 @pytest.mark.parametrize("dt", layout.DTYPES)
 def test_rows_are_contiguous_slices(dt):
-    """The TPU-first fact everything is built on: transposed row (row, :) is
+    """The layout fact everything is built on: transposed row (row, :) is
     the contiguous flat slice [row_offset(row), row_offset(row)+LANES)."""
     nl = layout.lanes(dt)
     for r in range(layout.bit_width(dt)):

@@ -32,7 +32,7 @@ _WORKER = textwrap.dedent("""
     values = rng.integers(0, 1 << 11, (64, 1024), np.int64).astype(np.uint32)
     w = int(psh.global_max_bits(mesh, values, "u32"))
     assert w == 11, w
-    bad = int(psh.sharded_roundtrip_check(mesh, values, w, "u32", use_kernels=False))
+    bad = int(psh.sharded_roundtrip_check(mesh, values, w, "u32"))
     assert bad == 0, bad
     print("OK", pid, flush=True)
 """).format(repo=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))

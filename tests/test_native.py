@@ -103,10 +103,10 @@ def test_native_out_buffers(rng):
 
 @pytest.mark.parametrize("dt,w", width_sweep())
 def test_native_golden_pins(dt, w):
-    """Explicit pin linkage (VERDICT r3 item 9): the C++ host codec's packed
+    """Explicit pin linkage: the C++ host codec's packed
     bytes for the reference test pattern match tests/golden_sweep_sha256.json
     DIRECTLY — not just transitively through the oracle. Together with
-    test_numpy_ref.test_golden_sweep_sha256 (oracle) and the ops/Pallas sweep
+    test_numpy_ref.test_golden_sweep_sha256 (oracle) and the ops sweep
     tests this closes the three-way independent-implementation triangle on
     every one of the 124 pinned configs (reference bitpacking.rs:273-315)."""
     import hashlib

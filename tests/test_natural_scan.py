@@ -1,5 +1,5 @@
-"""Natural-order (transposed-domain) analytics consumption — VERDICT r4
-item 3a: order-insensitive consumers (reductions, counts, value-domain
+"""Natural-order (transposed-domain) analytics consumption:
+order-insensitive consumers (reductions, counts, value-domain
 aggregates) skip the per-block untranspose relayout entirely on
 delta-family chunks. These tests pin BOTH directions: exactness of every
 enabled surface, and that the untranspose/orig decode genuinely never runs
@@ -16,7 +16,7 @@ RNG = np.random.default_rng(11)
 
 def _spy_orig_and_untranspose(monkeypatch):
     """Count every standalone untranspose and every *_orig fused decode."""
-    from fastlanes_tpu.kernels import pallas_codecs as pk
+    from fastlanes_tpu.kernels import codecs as pk
     from fastlanes_tpu.ops import transpose as transpose_mod
 
     calls = {"untranspose": 0, "orig": 0}

@@ -43,7 +43,7 @@ def test_golden_sweep_sha256(dt, w):
     the reference crate's test pattern values[i] = i % (1 << (W % T))
     (reference bitpacking.rs:281; 9+17+33+65 = 124 configs). The pins were
     generated from the NumPy oracle — four independent implementations agree
-    on them (oracle, XLA ops, Pallas kernels, C++ host codec), and
+    on them (oracle, XLA ops, C++ host codec), and
     tools/rust_goldens makes them machine-checkable against the actual Rust
     crate the moment a cargo toolchain is available."""
     import json

@@ -1,34 +1,27 @@
-"""Pallas kernel conformance (interpreter mode on CPU) vs the NumPy oracle.
-
-The real-TPU compiled path is exercised by bench.py and __graft_entry__ on
-hardware; here the same kernel bodies run through the Pallas interpreter,
-which validates semantics (shifts, masks, limb carries, fusion hooks,
-padding/tiling) exactly."""
+"""Public codec entries (kernels.*) vs the NumPy oracle, padding and shapes
+included. The transposed-order entries are the XLA ops codecs; tests marked
+`gpu` run the entries as XLA compiles them for the card."""
 
 import numpy as np
 import pytest
 
 from fastlanes_tpu.core import layout
-from fastlanes_tpu.kernels import pallas_codecs as pk
+from fastlanes_tpu.kernels import codecs as pk
 from fastlanes_tpu.ref import numpy_ref as ref
 
 from conftest import random_values, width_sample
 from test_ops_vs_ref import from_jax_form, to_jax_form
 
-TILE = 16  # small tile => multiple grid steps + padding paths in tests
-
 
 @pytest.mark.parametrize("dt,w", width_sample())
 def test_kernel_pack_unpack(dt, w, rng):
-    values = random_values(rng, dt, w, n_blocks=24)  # 24 = 1.5 tiles -> padding
+    values = random_values(rng, dt, w, n_blocks=24)
     gold = ref.pack(values, w, dt)
 
-    got = from_jax_form(
-        pk.pack(to_jax_form(values, dt), w, dt, tile_b=TILE, interpret=True), dt)
+    got = from_jax_form(pk.pack(to_jax_form(values, dt), w, dt), dt)
     np.testing.assert_array_equal(got, gold)
 
-    out = from_jax_form(
-        pk.unpack(to_jax_form(gold, dt), w, dt, tile_b=TILE, interpret=True), dt)
+    out = from_jax_form(pk.unpack(to_jax_form(gold, dt), w, dt), dt)
     np.testing.assert_array_equal(out, values)
 
 
@@ -44,13 +37,11 @@ def test_kernel_fused_delta(dt, rng):
     gold_packed = ref.pack(deltas, w, dt)
 
     got_packed = from_jax_form(
-        pk.delta_pack(to_jax_form(transposed, dt), to_jax_form(base, dt), w, dt,
-                      tile_b=4, interpret=True), dt)
+        pk.delta_pack(to_jax_form(transposed, dt), to_jax_form(base, dt), w, dt), dt)
     np.testing.assert_array_equal(got_packed, gold_packed)
 
     got_dec = from_jax_form(
-        pk.undelta_pack(to_jax_form(gold_packed, dt), to_jax_form(base, dt), w, dt,
-                        tile_b=4, interpret=True), dt)
+        pk.undelta_pack(to_jax_form(gold_packed, dt), to_jax_form(base, dt), w, dt), dt)
     np.testing.assert_array_equal(got_dec, transposed)
 
 
@@ -64,18 +55,19 @@ def test_kernel_fused_ffor(dt, rng):
     gold_packed = ref.for_pack(values, reference, w, dt)
 
     got_packed = from_jax_form(
-        pk.for_pack(to_jax_form(values, dt), reference, w, dt,
-                    tile_b=4, interpret=True), dt)
+        pk.for_pack(to_jax_form(values, dt), reference, w, dt), dt)
     np.testing.assert_array_equal(got_packed, gold_packed)
 
     got_dec = from_jax_form(
-        pk.unfor_pack(to_jax_form(gold_packed, dt), reference, w, dt,
-                      tile_b=4, interpret=True), dt)
+        pk.unfor_pack(to_jax_form(gold_packed, dt), reference, w, dt), dt)
     np.testing.assert_array_equal(got_dec, values)
 
 
-def test_kernel_fallback_off_tpu(rng):
-    """Without interpret=True and without a TPU, entry points route to ops."""
+def test_kernel_fallback_without_table(rng):
+    """The public pack is the XLA ops codec, with no routing in between."""
+    from fastlanes_tpu.ops import bitpack
+
+    assert pk.pack is bitpack.pack
     values = random_values(rng, "u32", 7, n_blocks=4)
     got = np.asarray(pk.pack(values, 7, "u32"))
     np.testing.assert_array_equal(got, ref.pack(values, 7, "u32"))
@@ -83,7 +75,23 @@ def test_kernel_fallback_off_tpu(rng):
 
 def test_kernel_width_zero(rng):
     values = random_values(rng, "u16", 0, n_blocks=4)
-    got = pk.pack(values, 0, "u16", interpret=True)
+    got = pk.pack(values, 0, "u16")
     assert got.shape == (4, 0)
-    out = np.asarray(pk.unpack(np.zeros((4, 0), np.uint16), 0, "u16", interpret=True))
+    out = np.asarray(pk.unpack(np.zeros((4, 0), np.uint16), 0, "u16"))
     np.testing.assert_array_equal(out, np.zeros((4, 1024), np.uint16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,w", [("u8", 3), ("u16", 9), ("u32", 11),
+                                  ("u64", 41)])
+def test_fused_decodes_compiled_on_gpu(dt, w, rng):
+    """The fused delta entries as XLA compiles them for the card, against
+    the oracle."""
+    n_blocks, nl = 1029, layout.lanes(dt)
+    values = np.sort(random_values(rng, dt, w - 1, n_blocks=n_blocks), axis=1)
+    transposed = ref.transpose(values, dt)
+    base = np.ascontiguousarray(transposed[:, :nl])
+    packed = ref.pack(ref.delta(transposed, base, dt), w, dt)
+    got = pk.undelta_pack_orig(to_jax_form(packed, dt), to_jax_form(base, dt),
+                               w, dt)
+    np.testing.assert_array_equal(from_jax_form(got, dt), values)

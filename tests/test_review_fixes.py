@@ -5,23 +5,23 @@ import numpy as np
 import pytest
 
 from fastlanes_tpu import fio
-from fastlanes_tpu.kernels import pallas_codecs as pk
+from fastlanes_tpu.kernels import codecs as pk
 from fastlanes_tpu.models.codecs import auto_encode
 from fastlanes_tpu.ref import numpy_ref as ref
 
 
 def test_kernel_entries_accept_unbatched(rng):
     values = rng.integers(0, 8, 1024, np.int64).astype(np.uint16)
-    packed = pk.pack(values, 3, "u16", tile_b=4, interpret=True)
+    packed = pk.pack(values, 3, "u16")
     assert packed.shape == (192,)  # unbatched in -> unbatched out
-    out = np.asarray(pk.unpack(packed, 3, "u16", tile_b=4, interpret=True))
+    out = np.asarray(pk.unpack(packed, 3, "u16"))
     np.testing.assert_array_equal(out, values)
 
 
 def test_kernel_entries_accept_u64_limb_image(rng):
     values = rng.integers(0, 1 << 40, (4, 1024), np.int64).astype(np.uint64)
     limbs = np.ascontiguousarray(values).view(np.uint32).reshape(4, 1024, 2)
-    packed = pk.pack(limbs, 41, "u64", tile_b=4, interpret=True)
+    packed = pk.pack(limbs, 41, "u64")
     assert packed.dtype == np.uint32 and packed.shape[-1] == 2
     gold = ref.pack(values, 41, "u64")
     np.testing.assert_array_equal(
@@ -32,7 +32,7 @@ def test_kernel_entries_accept_u64_limb_image(rng):
 def test_kernel_entries_reject_wrong_dtype(rng):
     values = rng.integers(0, 8, (4, 1024), np.int64)  # int64, not uint16
     with pytest.raises(ValueError):
-        pk.pack(values, 3, "u16", tile_b=4, interpret=True)
+        pk.pack(values, 3, "u16")
 
 
 def test_native_unpack_single_bounds(rng):

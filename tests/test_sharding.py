@@ -30,17 +30,17 @@ def test_sharded_pack_unpack(mesh, dt, rng):
     values = random_values(rng, dt, w, n_blocks=32)
     gold = ref.pack(values, w, dt)
 
-    packed = parallel.sharded_pack(mesh, to_jax_form(values, dt), w, dt, use_kernels=False)
+    packed = parallel.sharded_pack(mesh, to_jax_form(values, dt), w, dt)
     np.testing.assert_array_equal(from_jax_form(packed, dt), gold)
 
-    out = parallel.sharded_unpack(mesh, to_jax_form(gold, dt), w, dt, use_kernels=False)
+    out = parallel.sharded_unpack(mesh, to_jax_form(gold, dt), w, dt)
     np.testing.assert_array_equal(from_jax_form(out, dt), values)
 
 
 def test_sharded_uneven_blocks(mesh, rng):
     """Block counts not divisible by the mesh get padded and un-padded."""
     values = random_values(rng, "u32", 9, n_blocks=13)
-    packed = parallel.sharded_pack(mesh, values, 9, "u32", use_kernels=False)
+    packed = parallel.sharded_pack(mesh, values, 9, "u32")
     np.testing.assert_array_equal(np.asarray(packed), ref.pack(values, 9, "u32"))
 
 
@@ -51,17 +51,17 @@ def test_sharded_fused_delta(mesh, rng):
     deltas = ref.delta(transposed, np.broadcast_to(base, (16, 64)), "u16")
     packed = ref.pack(deltas, 15, "u16")
 
-    out = parallel.sharded_undelta_pack(mesh, packed, base, 15, "u16", use_kernels=False)
+    out = parallel.sharded_undelta_pack(mesh, packed, base, 15, "u16")
     np.testing.assert_array_equal(np.asarray(out), transposed)
 
 
 def test_sharded_ffor(mesh, rng):
     w, reference = 8, 1000
     values = random_values(rng, "u32", 7, n_blocks=16) + np.uint32(reference)
-    packed = parallel.sharded_for_pack(mesh, values, reference, w, "u32", use_kernels=False)
+    packed = parallel.sharded_for_pack(mesh, values, reference, w, "u32")
     np.testing.assert_array_equal(np.asarray(packed),
                                   ref.for_pack(values, reference, w, "u32"))
-    out = parallel.sharded_unfor_pack(mesh, packed, reference, w, "u32", use_kernels=False)
+    out = parallel.sharded_unfor_pack(mesh, packed, reference, w, "u32")
     np.testing.assert_array_equal(np.asarray(out), values)
 
 
@@ -85,32 +85,27 @@ def test_global_max_bits_u64_high_limb(mesh, rng):
 def test_all_gather_packed(mesh, rng):
     values = random_values(rng, "u32", 9, n_blocks=16)
     gold = ref.pack(values, 9, "u32")
-    packed = parallel.sharded_pack(mesh, values, 9, "u32", use_kernels=False)
+    packed = parallel.sharded_pack(mesh, values, 9, "u32")
     gathered = parallel.all_gather_packed(mesh, packed, "u32")
     np.testing.assert_array_equal(np.asarray(gathered), gold)
 
 
 def test_sharded_roundtrip_check(mesh, rng):
     values = random_values(rng, "u32", 13, n_blocks=24)
-    bad = int(parallel.sharded_roundtrip_check(mesh, values, 13, "u32", use_kernels=False))
+    bad = int(parallel.sharded_roundtrip_check(mesh, values, 13, "u32"))
     assert bad == 0
 
 
 # ---------------------------------------------------------------------------
-# kernel path under shard_map: use_kernels="interpret" runs the EXACT Pallas
-# kernel code (small tile, interpret mode) inside shard_map on the CPU mesh,
-# covering the check_vma=False seam that only the kernel path takes
-# (shard.py disables the replication checker because pallas_call's out_shape
-# carries no varying-across-mesh info).
+# the public kernels.* entries under shard_map on the CPU mesh: uneven block
+# counts, original-order decodes (routed per device; the documented default
+# formulation when no table exists), u64 planes and per-block bases.
 
 
 @pytest.fixture(autouse=True, scope="module")
 def _fresh_compiler_state():
-    """Compiling shard_map(pallas interpret) programs after a full suite's
-    worth of accumulated executables segfaulted XLA's CPU backend twice
-    (jax compiler.py backend_compile_and_load, full-suite runs only — the
-    file solo is stable). Dropping the in-process jit/executable caches
-    before this module avoids the state buildup."""
+    """Drop the in-process jit/executable caches before this module, so
+    its shard_map programs compile against a fresh compiler state."""
     jax.clear_caches()
     from fastlanes_tpu.parallel import shard
 
@@ -120,20 +115,22 @@ def _fresh_compiler_state():
 
 @pytest.mark.parametrize("dt", layout.DTYPES)
 def test_sharded_kernel_pack_unpack(mesh, dt, rng):
+    """13 blocks over 8 devices: pack, and unpack straight to original
+    order, both padded and trimmed."""
     w = max(1, layout.bit_width(dt) // 2 - 1)
-    values = random_values(rng, dt, w, n_blocks=16)
-    gold = ref.pack(values, w, dt)
-    packed = parallel.sharded_pack(mesh, to_jax_form(values, dt), w, dt,
-                                   use_kernels="interpret")
-    np.testing.assert_array_equal(from_jax_form(packed, dt), gold)
-    out = parallel.sharded_unpack(mesh, to_jax_form(gold, dt), w, dt,
-                                  use_kernels="interpret")
+    values = random_values(rng, dt, w, n_blocks=13)
+    packed = parallel.sharded_pack(mesh, to_jax_form(values, dt), w, dt)
+    np.testing.assert_array_equal(from_jax_form(packed, dt),
+                                  ref.pack(values, w, dt))
+    tr_packed = ref.pack(ref.transpose(values, dt), w, dt)
+    out = parallel.sharded_unpack(mesh, to_jax_form(tr_packed, dt), w, dt,
+                                  orig=True)
     np.testing.assert_array_equal(from_jax_form(out, dt), values)
 
 
 @pytest.mark.parametrize("dt", ["u16", "u64"])
 def test_sharded_kernel_fused_delta(mesh, dt, rng):
-    """Kernel undelta_pack under shard_map: shared (replicated) base AND
+    """Fused delta decode under shard_map: shared (replicated) base AND
     per-block (block-sharded) base."""
     t = layout.bit_width(dt)
     nl = layout.lanes(dt)
@@ -145,8 +142,7 @@ def test_sharded_kernel_fused_delta(mesh, dt, rng):
     deltas = ref.delta(transposed, base_b, dt)
     packed = ref.pack(deltas, w, dt)
     out = parallel.sharded_undelta_pack(
-        mesh, to_jax_form(packed, dt), to_jax_form(base_b, dt), w, dt,
-        use_kernels="interpret")
+        mesh, to_jax_form(packed, dt), to_jax_form(base_b, dt), w, dt)
     np.testing.assert_array_equal(from_jax_form(out, dt), transposed)
 
     # shared zero base, replicated over the mesh
@@ -154,26 +150,28 @@ def test_sharded_kernel_fused_delta(mesh, dt, rng):
     deltas = ref.delta(transposed, np.broadcast_to(base_s, (16, nl)), dt)
     packed = ref.pack(deltas, w, dt)
     out = parallel.sharded_undelta_pack(
-        mesh, to_jax_form(packed, dt), to_jax_form(base_s, dt), w, dt,
-        use_kernels="interpret")
+        mesh, to_jax_form(packed, dt), to_jax_form(base_s, dt), w, dt)
     np.testing.assert_array_equal(from_jax_form(out, dt), transposed)
 
 
 def test_sharded_kernel_ffor(mesh, rng):
-    w, reference = 8, 1000
-    values = random_values(rng, "u32", 7, n_blocks=16) + np.uint32(reference)
-    packed = parallel.sharded_for_pack(mesh, values, reference, w, "u32",
-                                       use_kernels="interpret")
-    np.testing.assert_array_equal(np.asarray(packed),
-                                  ref.for_pack(values, reference, w, "u32"))
-    out = parallel.sharded_unfor_pack(mesh, packed, reference, w, "u32",
-                                      use_kernels="interpret")
-    np.testing.assert_array_equal(np.asarray(out), values)
+    """u64 FFoR over the mesh: limb-image encode, (lo, hi) plane decode."""
+    w, reference = 20, (1 << 40) + 3
+    values = random_values(rng, "u64", 19, n_blocks=12) + np.uint64(reference)
+    packed = parallel.sharded_for_pack(mesh, to_jax_form(values, "u64"),
+                                       reference, w, "u64")
+    np.testing.assert_array_equal(from_jax_form(packed, "u64"),
+                                  ref.for_pack(values, reference, w, "u64"))
+    lo, hi = parallel.sharded_unfor_pack(mesh, packed, reference, w, "u64",
+                                         planes=True)
+    img = np.asarray(to_jax_form(values, "u64"))
+    np.testing.assert_array_equal(np.asarray(lo), img[..., 0])
+    np.testing.assert_array_equal(np.asarray(hi), img[..., 1])
 
 
-@pytest.mark.parametrize("use_kernels", [False, "interpret"])
-def test_sharded_unzdelta_pack(mesh, rng, use_kernels):
-    """Sharded fused zdelta decode, ops path and kernel path."""
+@pytest.mark.parametrize("orig", [False, True])
+def test_sharded_unzdelta_pack(mesh, rng, orig):
+    """Sharded fused zdelta decode, transposed and original order."""
     from fastlanes_tpu import fio
 
     dt, nl = "u32", 32
@@ -184,15 +182,16 @@ def test_sharded_unzdelta_pack(mesh, rng, use_kernels):
     zz = fio._zigzag_deltas(ref.delta(transposed, base, dt))
     w = int(zz.max()).bit_length()
     packed = ref.pack(zz, w, dt)
-    out = parallel.sharded_unzdelta_pack(mesh, packed, base, w, dt,
-                                         use_kernels=use_kernels)
-    np.testing.assert_array_equal(np.asarray(out), transposed)
+    out = parallel.sharded_unzdelta_pack(mesh, packed, base, w, dt, orig=orig)
+    np.testing.assert_array_equal(np.asarray(out),
+                                  values if orig else transposed)
 
 
 def test_sharded_kernel_roundtrip_check(mesh, rng):
-    values = random_values(rng, "u32", 13, n_blocks=16)
-    bad = int(parallel.sharded_roundtrip_check(mesh, values, 13, "u32",
-                                               use_kernels="interpret"))
+    """psum'd round trip over u64 limb images, 11 blocks (padded)."""
+    values = random_values(rng, "u64", 37, n_blocks=11)
+    bad = int(parallel.sharded_roundtrip_check(
+        mesh, to_jax_form(values, "u64"), 37, "u64"))
     assert bad == 0
 
 
@@ -203,9 +202,7 @@ def test_full_distributed_pipeline(mesh, rng):
     reference = 5000
     values = random_values(rng, "u32", 11, n_blocks=32) + np.uint32(reference)
     width = int(parallel.global_max_bits(mesh, values - np.uint32(reference), "u32"))
-    packed = parallel.sharded_for_pack(mesh, values, reference, width, "u32",
-                                       use_kernels=False)
+    packed = parallel.sharded_for_pack(mesh, values, reference, width, "u32")
     gathered = parallel.all_gather_packed(mesh, packed, "u32")
-    out = parallel.sharded_unfor_pack(mesh, gathered, reference, width, "u32",
-                                      use_kernels=False)
+    out = parallel.sharded_unfor_pack(mesh, gathered, reference, width, "u32")
     np.testing.assert_array_equal(np.asarray(out), values)

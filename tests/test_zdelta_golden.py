@@ -60,8 +60,7 @@ def test_table_column_on_mesh(tmp_path, rng):
     path = str(tmp_path / "t.flt")
     fio_table.write_table(path, {"walk": col}, chunk_blocks=8)
     mesh = pmesh.make_mesh(8)
-    got = np.asarray(fio_device.read_column_device(path, "walk", mesh=mesh,
-                                                   use_kernels=False))
+    got = np.asarray(fio_device.read_column_device(path, "walk", mesh=mesh))
     np.testing.assert_array_equal(got, col)
 
 

@@ -1,17 +1,18 @@
 #!/usr/bin/env python
 """Inspect generated code for a codec config — the `cargo asm` recipe of the
-reference (reference README.md:60-66) translated to the XLA/Mosaic stack.
+reference (reference README.md:60-66) translated to the XLA stack.
 
     python tools/asm.py unpack u32 3              # stablehlo (lowered)
     python tools/asm.py unpack u32 3 --stage hlo  # optimized HLO (compiled)
-    python tools/asm.py pack u16 9 --path kernels # the Pallas kernel
+    python tools/asm.py pack u16 9 --path kernels # the routed public entry
     python tools/asm.py undelta_pack u32 7 --stage cost
 
-Stages: stablehlo (jax lowering), hlo (backend-optimized HLO — on TPU this
-shows what fused), cost (compiler cost analysis: flops/bytes accessed).
-The reference inspects LLVM SIMD output to confirm vectorization; here the
-analogous check is that the ops path lowers to one fused loop (HLO) and the
-kernel path to a single custom-call, plus the cost analysis byte counts.
+Stages: stablehlo (jax lowering), hlo (backend-optimized HLO — on the
+device this shows what fused), cost (compiler cost analysis: flops/bytes
+accessed). The reference inspects LLVM SIMD output to confirm
+vectorization; here the analogous check is that the ops path lowers to one
+fused loop (HLO) and a kernel to a single custom-call, plus the cost
+analysis byte counts.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ def main():
 
     from fastlanes_tpu.core import layout
     from fastlanes_tpu.ops import dispatch
-    from fastlanes_tpu.kernels import pallas_codecs as pk
+    from fastlanes_tpu.kernels import codecs as pk
 
     dt = layout.canon_dtype(args.dtype)
     w = args.width
